@@ -1,4 +1,4 @@
-"""Application-layer workloads ON THE CHIP (VERDICT r3 item 2).
+"""Application-layer workloads on the device.
 
 Times the end-user workloads the engine-level fast paths exist to serve —
 each wall-clock (what a user actually waits), with the batching/padding
@@ -18,8 +18,7 @@ economics made explicit:
   PartitionedEngine fit  4-locus partitioned fit (shared tree, per-locus
                        GTR+G4 + rate multipliers), chunked L-BFGS.
 
-Writes one JSON line; run on the TPU (falls back honestly, the device
-field says what ran). Padding overhead = 1 - real_slots/padded_slots of
+Writes one JSON line; the device field says what ran. Padding overhead = 1 - real_slots/padded_slots of
 the pad_schedules level grid for the first search round's neighborhood.
 
 Usage: python benchmarks/appbench.py [--taxa 64] [--sites 1000]
@@ -166,13 +165,10 @@ def main():
     from phylo_utils_tpu.partition import StackedPartitionedEngine
 
     t0 = time.perf_counter()
-    # stacked formulation (r5): the loci ride a vmap batch axis of ONE
-    # engine, so the program is single-engine-sized and the default
-    # L-BFGS chunk compiles fine — r4's adam workaround (the 4-engine
-    # inlined chunk wedged the degraded remote compiler) is obsolete;
+    # stacked formulation: the loci ride a vmap batch axis of ONE
+    # engine, so the program is single-engine-sized;
     # benchmarks/partition_scaling.py holds the looped-vs-stacked curve.
-    pe = StackedPartitionedEngine(tree, parts, pruner="pallas",
-                                  dtype="float32")
+    pe = StackedPartitionedEngine(tree, parts, dtype="float32")
     ll0 = pe.loglikelihood()
     res = fit(pe, max_steps=200, steps_per_call=50, patience=100)
     part_s = time.perf_counter() - t0

@@ -1,10 +1,10 @@
-"""Worker for the killed-and-restarted 2-process fit test (VERDICT r1 §9).
+"""Worker for the killed-and-restarted 2-process fit test.
 
 Each process owns 4 virtual CPU devices; ``jax.distributed.initialize``
 stitches them into one 8-device global mesh. The alignment's site patterns
 are sharded across the mesh (the production multi-host layout); optimizer
 state is replicated, checkpoints are written by process 0 only
-(``utils.checkpoint.save_checkpoint``), exactly as on a TPU pod slice.
+(``utils.checkpoint.save_checkpoint``), exactly as on a multi-host cluster.
 
 Modes (argv[4]):
   clean   run ``fit`` for TOTAL_STEPS uninterrupted, print the final raw

@@ -2,8 +2,8 @@
 
 Run one instance per "host" (process). Each process owns 4 virtual CPU
 devices; ``jax.distributed.initialize`` stitches them into one 8-device
-global mesh — the same runtime path a 2-host TPU pod slice uses (DCN
-coordination + global mesh + per-process data shards via
+global mesh — the same runtime path a 2-host accelerator cluster uses
+(cross-host coordination + global mesh + per-process data shards via
 ``jax.make_array_from_process_local_data``).
 
 Usage (from tests or by hand):

@@ -3,7 +3,7 @@ eigh), pruning kernel, and the fused full pipeline — plus an optional
 jax.profiler trace for Perfetto/TensorBoard.
 
 Usage: python benchmarks/profile_components.py [--taxa 64] [--sites 1024]
-       [--ncat 4] [--pruner pallas|xla] [--trace /tmp/jaxtrace]
+       [--ncat 4] [--trace /tmp/jaxtrace]
 """
 from __future__ import annotations
 
@@ -48,7 +48,6 @@ def main():
     ap.add_argument("--taxa", type=int, default=64)
     ap.add_argument("--sites", type=int, default=1024)
     ap.add_argument("--ncat", type=int, default=4)
-    ap.add_argument("--pruner", default="pallas", choices=["pallas", "xla"])
     ap.add_argument("--trace", help="profiler trace output dir")
     args = ap.parse_args()
 
@@ -60,7 +59,6 @@ def main():
     }
     engine = LikelihoodEngine(
         tree, aln, models.GTR, ncat=args.ncat, dtype="float32",
-        pruner=args.pruner,
     )
     params = engine._full_params(None)
     lp, w = engine._leaf_partials, engine._weights
@@ -90,7 +88,6 @@ def main():
         "prune_ms": round(t_prune, 4),
         "patterns_per_s_full": round(n_pat / (t_full / 1e3), 1),
         "n_patterns": n_pat,
-        "pruner": args.pruner,
         "device": str(jax.devices()[0]),
         "trace_dir": args.trace,
     }))

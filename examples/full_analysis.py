@@ -4,7 +4,7 @@ Simulate data under a known model, then recover everything from scratch:
 distances → NJ tree → NNI/SPR search → model selection → joint ML fit →
 rate/ancestral posteriors → bootstrap + topology tests.
 
-Run:  python examples/full_analysis.py            (TPU or CPU)
+Run:  python examples/full_analysis.py            (GPU or CPU)
       JAX_PLATFORMS=cpu python examples/full_analysis.py
 """
 import os

@@ -7,7 +7,7 @@ candidate set, joint (Pupko) vs marginal ancestral reconstruction,
 posterior-mean site rates, and parametric-bootstrap vs observed-Fisher
 standard errors for the model parameters.
 
-Run:  python examples/uncertainty_analysis.py      (TPU or CPU)
+Run:  python examples/uncertainty_analysis.py      (GPU or CPU)
       JAX_PLATFORMS=cpu python examples/uncertainty_analysis.py
 """
 import os

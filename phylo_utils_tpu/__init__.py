@@ -1,6 +1,6 @@
-"""phylo_utils_tpu — a TPU-native phylogenetic likelihood engine.
+"""phylo_utils_tpu — a phylogenetic likelihood engine on JAX.
 
-A from-scratch JAX/XLA/Pallas framework with the capabilities of the
+A from-scratch JAX/XLA framework with the capabilities of the
 reference library ``kgori/phylo_utils`` (see SURVEY.md; the reference mount
 was empty this session, so capability citations are given as
 ``phylo_utils/<module> [confidence]`` per SURVEY.md §0):
@@ -17,11 +17,11 @@ was empty this session, so capability citations are given as
 * alignment ingestion incl. IUPAC ambiguity codes and site-pattern
   compression                                     [__init__/data.py, HIGH]
 
-The design is TPU-first, not a port: pure functions over PyTrees with static
-shapes, tree topologies compiled to padded level schedules, rate categories
-vmapped, sites sharded data-parallel over a ``jax.sharding.Mesh``, and the
-pruning hot loop available both as a fused Pallas TPU kernel and a pure-XLA
-einsum path.
+The design is built for an accelerator, not a port: pure functions over
+PyTrees with static shapes, tree topologies compiled to padded level
+schedules, rate categories vmapped, sites sharded data-parallel over a
+``jax.sharding.Mesh``, and the pruning hot loop one batched XLA einsum per
+level of the tree.
 """
 
 __version__ = "0.1.0"

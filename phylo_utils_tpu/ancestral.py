@@ -210,7 +210,7 @@ def ancestral_posteriors(
             # space (e^m under/overflows directly)
             pinv = jnp.asarray(pinv, dtype)
             prod = jnp.prod(leaf_partials.astype(dtype), axis=0)  # (s,S)
-            fbar = jnp.einsum("k,ki->i", cat_weights, fk)
+            fbar = jnp.einsum("k,ki->i", cat_weights, fk, precision=_HI)
             inv_unnorm = fbar[None, :] * prod                     # (s,S)
             inv_tot = jnp.sum(inv_unnorm, axis=-1)                # (s,)
             log_var = jnp.log1p(-pinv) + m + jnp.log(
@@ -428,7 +428,8 @@ def joint_ancestral_states(
             # +I component: identity P forces every node to one state x;
             # joint prob = pinv * pi_bar_x * prod_leaves partial[l, s, x]
             prod = jnp.prod(leaf_partials.astype(dtype), axis=0)  # (sites,S)
-            fbar = jnp.einsum("k,ki->i", cat_weights.astype(dtype), fk)
+            fbar = jnp.einsum("k,ki->i", cat_weights.astype(dtype), fk,
+                              precision=_HI)
             inv_scores = fbar[None, :] * prod
             inv_state = jnp.argmax(inv_scores, axis=-1).astype(jnp.int32)
             inv_max = jnp.max(inv_scores, axis=-1)

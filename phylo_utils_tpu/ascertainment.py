@@ -9,10 +9,10 @@ correction conditions every site likelihood on being variable:
     L_corrected(site) = L(site) / (1 - V),   V = sum_s L(constant_s)
 
 The reference library has no ascertainment support (SURVEY.md §2); this
-is a capability extension. TPU-first design: the S constant patterns are
+is a capability extension. Batched design: the S constant patterns are
 APPENDED to the pattern tensor with weight 0, so V comes out of the same
 single fused pruning dispatch as the data patterns — no second tree
-walk, fully differentiable, works under both pruners and site sharding.
+walk, fully differentiable, works under site sharding.
 
 Corrections:
 

@@ -1,7 +1,7 @@
 """Batched evaluation of MANY tree topologies against one alignment.
 
 The reference (and its downstream consumer treeCl) scores candidate
-topologies one at a time through a Python/Cython loop. On TPU the natural
+topologies one at a time through a Python/Cython loop. On an accelerator the natural
 design is topology batching: all binary trees on n taxa have 2n-1 nodes, so
 their level schedules pad to one common (levels, width, children) shape and
 the whole pruning pass vmaps over a stacked schedule tensor — hundreds of
@@ -46,7 +46,7 @@ def choose_regroup_width(schedules: Sequence[ptrees.PruningSchedule],
     Returns ``(width, regrouped_schedules)`` — width 0 keeps the original
     height-level grid (it wins on caterpillar-like trees whose critical
     path IS the walk). The height-level grid pads every level to the
-    widest (fill 14–22% on 64-taxon NNI sets, APPBENCH r4);
+    widest, which leaves most of the grid empty on NNI candidate sets;
     ``trees.regroup_schedule`` packs near-full fixed-width groups
     instead. Area is compared after common padding across the whole
     candidate set, so the choice is exact for the batch that will run.
@@ -54,10 +54,9 @@ def choose_regroup_width(schedules: Sequence[ptrees.PruningSchedule],
     ``max_level_factor`` bounds the regrouped LEVEL COUNT at that
     multiple of the original grid's: the batched gradient's scan-VJP
     stores the full partials carry PER LEVEL, so a narrow width that
-    minimizes area can multiply residual memory by G/L — the r5
-    area-only chooser picked U=2–3 on 64-taxon sets (G≈3–5×L) and blew
-    the chip's HBM on the aLRT gradient chunk. Wider groups keep ≥80%
-    fill at G ≲ 1.5 L.
+    minimizes area can multiply residual memory by G/L: an area-only
+    chooser picks U=2–3 on 64-taxon sets (G≈3–5×L), and the aLRT
+    gradient chunk then runs out of device memory.
     """
     l0 = max(s.n_levels for s in schedules)
     area0 = l0 * max(s.width for s in schedules)
@@ -144,7 +143,7 @@ def _prune_dynamic(nodes, children, mask, p_matrices, leaf_partials, root):
         sc = jnp.sum(child_sc * mask[:, :, None, None].astype(dtype), axis=1)
         m = jnp.maximum(jnp.max(partial, axis=-1), tiny)
         if dtype == jnp.float32:
-            # exact power-of-2 rescale (TPU f32 log bias — see ops.pruning)
+            # exact power-of-2 rescale (see ops.pruning.pow2_rescale)
             scale, e = pow2_rescale(m)
             partial = partial * scale[..., None]
             sc = sc + e
@@ -445,9 +444,9 @@ def chunked_brlen_optimize(
     """``optimize_branch_lengths`` over a candidate set in fixed-size CHUNKS.
 
     The batched gradient's scan-VJP stores the partials carry per level —
-    B × levels × (n_nodes × K × patterns × S) floats (measured r4:
-    13.3 GB for the 125-candidate 64-taxon GTR+Γ4 NNI neighborhood —
-    over HBM). Chunking bounds residual memory at
+    B × levels × (n_nodes × K × patterns × S) floats, which for a
+    125-candidate 64-taxon GTR+Γ4 NNI neighborhood is many gigabytes.
+    Chunking bounds residual memory at
     ``batch_chunk/B`` of that; every chunk shares ONE compiled program:
     ONE engine's schedule arrays are swapped per chunk
     (``set_candidates``) under a padded shape pinned to the candidate

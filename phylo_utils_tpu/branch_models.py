@@ -15,11 +15,11 @@ its own model parameters. Covered here:
   FOREGROUND and BACKGROUND edges; the standard test for positive
   selection on a lineage (``branch_site_test``).
 
-TPU-first design: edge classes are a static int vector baked into the
+Batched design: edge classes are a static int vector baked into the
 compiled program; per-class (sym, freqs) are built by one ``vmap`` over the
 stacked class parameters, P(t) by the degeneracy-safe
 ``p_matrices_reversible`` custom-JVP path, and the per-edge matrix is a
-single gather — everything downstream (the Pallas/XLA pruning pass, scaling,
+single gather — everything downstream (the pruning pass, scaling,
 mixing, ``jax.grad``, sharding, ancestral posteriors) is untouched: the
 engines override only the ``_mixture_tensors`` hook.
 """
@@ -501,7 +501,8 @@ def _branch_site_pair_logliks(engine: "BranchSiteAEngine", full, pairs,
         p = extend_p_identity(p, engine.schedule.n_nodes)
         root_partials, root_logscale = engine._prune(p, leaf_partials)
         lik = jnp.einsum("ksi,i->ks", root_partials,
-                         freqs_u[0].astype(dtype))
+                         freqs_u[0].astype(dtype),
+                         precision=jax.lax.Precision.HIGHEST)
         return jnp.log(lik) + root_logscale
 
     if not hasattr(engine, "_bs_pair_jit"):

@@ -129,7 +129,6 @@ def _add_engine_args(p: argparse.ArgumentParser):
                    help="set model equilibrium frequencies from observed "
                         "character counts (the '+F' convention)")
     p.add_argument("--dtype", default=None, help="float32|float64")
-    p.add_argument("--pruner", default="xla", choices=["xla", "pallas"])
     p.add_argument("--shard-sites", action="store_true",
                    help="shard patterns over all devices")
     p.add_argument("--partitions", default=None,
@@ -193,14 +192,14 @@ def _build_engine(args):
         try:
             engine = StackedPartitionedEngine(
                 _read_tree(args.tree), parts, dtype=args.dtype,
-                pruner=args.pruner, sharding=sharding,
+                sharding=sharding,
             )
         except ValueError as e:
             if "share the model family" not in str(e):
                 raise SystemExit(f"--partitions: {e}")
             engine = PartitionedEngine(
                 _read_tree(args.tree), parts, dtype=args.dtype,
-                pruner=args.pruner, sharding=sharding,
+                sharding=sharding,
             )
         # stash the +F initial frequencies for _engine_params to merge
         engine._partition_init_params = init
@@ -240,7 +239,6 @@ def _build_engine(args):
             return profile_mixture_from_nexus(
                 path, name, _read_tree(args.tree),
                 _read_aln(args.alignment), base, dtype=args.dtype,
-                pruner=args.pruner,
             )
         except (OSError, ValueError) as e:
             raise SystemExit(f"--profile-mixture: {e}")
@@ -294,7 +292,6 @@ def _build_engine(args):
             rate_model=rate_model,
             dtype=args.dtype,
             sharding=sharding,
-            pruner=args.pruner,
             **extra,
         )
     except ValueError as e:
@@ -450,7 +447,6 @@ def cmd_benchmark(args) -> int:
         "step_ms": dt * 1e3,
         "n_patterns": n_pat,
         "n_devices": n_dev,
-        "pruner": args.pruner,
     }))
     return 0
 
@@ -787,7 +783,7 @@ def cmd_site_test(args) -> int:
     tree = _read_tree(args.tree)
     aln = _read_aln(args.alignment)
     ca = encode_codon_alignment(aln)
-    kw = {"dtype": args.dtype, "pruner": args.pruner}
+    kw = {"dtype": args.dtype}
     # codeml convention: codon frequencies FIXED at their empirical
     # estimate (CodonFreq); kappa free via the dotted parameter name
     params0, base_free = _codon_freq_setup(aln, args.codon_freqs)
@@ -856,7 +852,7 @@ def cmd_branch_site_test(args) -> int:
     res = branch_site_test(
         tree, ca, fg,
         params0=params0,
-        engine_kwargs={"dtype": args.dtype, "pruner": args.pruner},
+        engine_kwargs={"dtype": args.dtype},
         max_steps=args.max_steps,
     )
     print(json.dumps({
@@ -1005,7 +1001,7 @@ def _in_clade(tree, anc: int, leaf: int) -> bool:
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(
         prog="phylo_utils_tpu",
-        description="TPU-native phylogenetic likelihood engine",
+        description="phylogenetic likelihood engine on JAX",
     )
     sub = ap.add_subparsers(dest="cmd", required=True)
 
@@ -1196,7 +1192,6 @@ def main(argv=None) -> int:
                         "(codeml CodonFreq; 'uniform' frees the whole "
                         "shared block instead)")
     p.add_argument("--dtype", default=None)
-    p.add_argument("--pruner", default="xla", choices=["xla", "pallas"])
     p.set_defaults(fn=cmd_site_test)
 
     p = sub.add_parser(
@@ -1218,7 +1213,6 @@ def main(argv=None) -> int:
                         "shared block instead)")
     p.add_argument("--max-steps", type=int, default=200)
     p.add_argument("--dtype", default=None)
-    p.add_argument("--pruner", default="xla", choices=["xla", "pallas"])
     p.set_defaults(fn=cmd_branch_site_test)
 
     p = sub.add_parser(
@@ -1277,6 +1271,9 @@ def main(argv=None) -> int:
         import jax
 
         jax.config.update("jax_enable_x64", True)
+    from phylo_utils_tpu.utils.cache import enable_compile_cache
+
+    enable_compile_cache()
     return args.fn(args)
 
 

@@ -14,7 +14,7 @@ family:
   strict clock (null) vs. unconstrained branch lengths (alternative),
   df = (identifiable branch lengths) - (clock parameters).
 
-TPU-first design: heights are a PURE REPARAMETERIZATION of branch
+Design: heights are a PURE REPARAMETERIZATION of branch
 lengths, materialized inside the jitted likelihood. Each non-root
 internal node carries a free fraction f in (0,1) of its parent's height
 (sigmoid-constrained under ``fit``), the root carries a free positive
@@ -111,7 +111,7 @@ class ClockEngine(LikelihoodEngine):
       identifiability; edge lengths in class c are scaled by
       ``multipliers[c]``.
 
-    Everything else (model params, +G/+I, pruner choice, sharding,
+    Everything else (model params, +G/+I, walk options, sharding,
     gradients, posteriors) behaves exactly as in ``LikelihoodEngine``;
     ``node_heights``/``chronogram`` expose the fitted ultrametric tree.
     """
@@ -177,7 +177,8 @@ class ClockEngine(LikelihoodEngine):
                 params["height_fractions"].astype(dtype), 1e-6, 1.0 - 1e-6
             )
             # log h_k = log H + sum of log f over root->k internal path
-            h = h * jnp.exp(self._anc.astype(dtype) @ jnp.log(f))
+            h = h * jnp.exp(jnp.matmul(self._anc.astype(dtype), jnp.log(f),
+                                       precision=jax.lax.Precision.HIGHEST))
         else:
             h = h[None] if h.ndim == 0 else h
         return jnp.broadcast_to(
@@ -426,7 +427,8 @@ class _PLProblem:
             H = jnp.exp(log_H) if free_root else root_age
             f = jax.nn.sigmoid(raw_f)
             if n_int > 1:
-                h = H * jnp.exp(anc_j @ jnp.log(f))
+                h = H * jnp.exp(jnp.matmul(
+                    anc_j, jnp.log(f), precision=jax.lax.Precision.HIGHEST))
             else:
                 h = jnp.full((1,), 1.0) * H
             return h

@@ -4,9 +4,9 @@ Reference parity: phylo_utils/likelihood.py ``RunOnTree``/``LnlModel`` and
 ``GammaMixture`` (set_tree / update_alpha / update_substitution_model /
 get_likelihood / get_sitewise_likelihoods; SURVEY.md §2 [HIGH mechanism]).
 
-TPU-first redesign: there is no mutable per-node state. The engine holds
-static data (compiled schedule, encoded patterns) and exposes ONE jitted pure
-function ``logL(params)`` where params is a PyTree
+Redesign for an accelerator: there is no mutable per-node state. The engine
+holds static data (compiled schedule, encoded patterns) and exposes ONE jitted
+pure function ``logL(params)`` where params is a PyTree
 ``{'branch_lengths', 'model', 'alpha'?, 'pinv'?}`` — so every reference
 "update_*" method is just calling the same compiled function with different
 parameters, and ``jax.grad`` supersedes the reference's hand-coded derivative
@@ -35,7 +35,6 @@ from phylo_utils_tpu.ops.pruning import (
     invariant_site_likelihood,
     make_prune_fn,
     mixture_loglik,
-    mixture_loglik_from_ll,
 )
 
 __all__ = ["LikelihoodEngine"]
@@ -96,8 +95,8 @@ def mixture_rates_and_p(engine, params, dtype, eig=None, rates=None):
     lives with the model and only P(t) is per-branch) instead of
     re-decomposing Q on every evaluation. This is the fast path for
     model-fixed workloads (branch-length optimization, distances, tree
-    search, bootstrap): the eigh is the single most expensive op in an
-    evaluation on TPU. Differentiable in branch lengths (d e^{lambda t}/dt
+    search, bootstrap): it takes the eigendecomposition off the per-eval
+    path. Differentiable in branch lengths (d e^{lambda t}/dt
     needs no eigh JVP); model-parameter gradients must use the eig=None
     path (Daleckii-Krein custom JVP).
     """
@@ -109,9 +108,8 @@ def mixture_rates_and_p(engine, params, dtype, eig=None, rates=None):
         # Reconstruct P directly in the engine's COMPUTE dtype: exp(lambda
         # t) stays in `dtype` (f64 under the precision plan — the
         # coherent-error source) while the spectral-mode matmul runs in
-        # f32 for f32 engines. Cuts the emulated-f64 reconstruct and the
-        # (edges, K, S, S) downcast out of the per-eval path (round-3
-        # VERDICT item 3: P-build dominated single-stream latency).
+        # f32 for f32 engines, so no (edges, K, S, S) f64 reconstruct and
+        # downcast sits on the per-eval path.
         p = transition_matrices(eig, ts, out_dtype=engine.dtype)
     elif engine.model.reversible:
         # degeneracy-safe custom-JVP path (ops.pmatrix docstring)
@@ -165,7 +163,11 @@ class LikelihoodEngine:
     dtype : computation dtype (None = f64 under x64, else f32)
     compress : collapse identical columns to weighted patterns
     sharding : optional parallel.SiteSharding to shard patterns over a mesh
-    pruner : "xla" (einsum path) or "pallas" (fused TPU kernel)
+    remat : recompute each level's activations in the backward pass instead
+        of storing the whole residual chain (less gradient memory, about one
+        extra forward pass)
+    unroll : unroll the level loop at trace time (False: ``lax.scan`` over
+        levels, a smaller program that compiles faster)
     """
 
     def __init__(
@@ -179,7 +181,6 @@ class LikelihoodEngine:
         dtype=None,
         compress: bool = True,
         sharding=None,
-        pruner: str = "xla",
         remat: bool = False,
         rate_model: str = "gamma",
         unroll: bool = True,
@@ -240,83 +241,10 @@ class LikelihoodEngine:
         weights = ca.weights                         # (P,)
 
         self.schedule = ptrees.compile_schedule(tree)
-        self._pallas_ll = None
-        if pruner == "pallas":
-            from phylo_utils_tpu.ops.pallas_pruning import (
-                make_pallas_loglik_fn,
-                make_pallas_prune_fn,
-                pallas_supported,
-            )
-
-            # Big-tree guard: the fused kernel holds the whole tree's
-            # partials in VMEM. If even the minimum site tile doesn't fit,
-            # fall back (forward -> XLA path; backward-only overflow ->
-            # keep the Pallas forward, gradients via the XLA VJP).
-            if not pallas_supported(self.schedule, model.n_states, "fwd"):
-                import warnings
-
-                warnings.warn(
-                    f"tree ({self.schedule.n_nodes} nodes x "
-                    f"{model.n_states} states) exceeds the Pallas kernel's "
-                    "VMEM working-set budget; using pruner='xla'",
-                    stacklevel=2,
-                )
-                pruner = "xla"
-
-        if pruner == "pallas":
-            if self.dtype == jnp.dtype("float64"):
-                import warnings
-
-                warnings.warn(
-                    "pruner='pallas' computes partials in float32 internally "
-                    "(TPU kernel); results are cast back to float64 but carry "
-                    "f32 precision. Use pruner='xla' for full-f64 parity runs.",
-                    stacklevel=2,
-                )
-            prune = make_pallas_prune_fn(self.schedule)
-            # always available: when the whole-tree saveall/backward
-            # working set overflows VMEM, make_pallas_loglik_fn chains
-            # VMEM-sized SEGMENTS (value-only calls still take the fast
-            # fused forward) — gradients keep kernel speed at any tree
-            # size
-            # diff_leaves=False: engine gradients are w.r.t. params only
-            # (leaf partials are DATA) — the fused backward skips their
-            # cotangent entirely (ops/pallas_pruning._fused_vjp_kernel)
-            pll = make_pallas_loglik_fn(
-                self.schedule, n_states=model.n_states, diff_leaves=False
-            )
-            if sharding is not None:
-                # A pallas_call is opaque to GSPMD; shard_map makes the
-                # kernel run shard-local on each device's site slice (the
-                # pass has no cross-site coupling, SURVEY.md §5).
-                from jax.sharding import PartitionSpec as P
-
-                ax = sharding.axis
-                prune = jax.shard_map(
-                    prune,
-                    mesh=sharding.mesh,
-                    in_specs=(P(), P(None, ax, None)),
-                    out_specs=(P(None, ax, None), P(None, ax)),
-                    check_vma=False,
-                )
-                if pll is not None:
-                    pll = jax.shard_map(
-                        pll,
-                        mesh=sharding.mesh,
-                        in_specs=(P(), P(None, ax, None), P()),
-                        out_specs=P(None, ax),
-                        check_vma=False,
-                    )
-            self._prune = prune
-            self._pallas_ll = pll
-        elif pruner == "xla":
-            # unroll=False compiles a lax.scan over levels: a much smaller
-            # program (one level body) — fast compiles for deep trees or
-            # compile-latency-sensitive entry points, same math.
-            self._prune = make_prune_fn(self.schedule, unroll=unroll,
-                                        remat=remat)
-        else:
-            raise ValueError(f"unknown pruner {pruner!r}; use 'xla' or 'pallas'")
+        # unroll=False compiles a lax.scan over levels: a much smaller
+        # program (one level body) — fast compiles for deep trees or
+        # compile-latency-sensitive entry points, same math.
+        self._prune = make_prune_fn(self.schedule, unroll=unroll, remat=remat)
 
         if sharding is not None:
             leaf_partials, weights = sharding.pad(leaf_partials, weights)
@@ -350,8 +278,7 @@ class LikelihoodEngine:
         """Eigen system for ``full_params['model']``, cached on the host by
         parameter VALUE (reference parity: the eigendecomposition lives
         with the model — phylo_utils/markov.py TransitionMatrix — and is
-        NOT redone per likelihood evaluation; on TPU the eigh is the most
-        expensive single op in an evaluation)."""
+        NOT redone per likelihood evaluation)."""
         rdt = self._reduce_dtype
         if "model" not in full_params:
             # mixture/subclass engines with their own parameterization:
@@ -475,13 +402,6 @@ class LikelihoodEngine:
             if self.invariant_sites
             else None
         )
-        if self._pallas_ll is not None:
-            # fused path: per-category sitewise logL straight from the
-            # kernel (root reduction fused, real Pallas backward)
-            ll = self._pallas_ll(p.astype(dtype), leaf_partials, freqs)
-            return mixture_loglik_from_ll(
-                ll, cat_weights, weights.astype(rdt), pinv=pinv, inv_lik=inv
-            )
         root_partials, root_logscale = self._prune(
             p.astype(dtype), leaf_partials
         )
@@ -527,9 +447,8 @@ class LikelihoodEngine:
         """logL for MANY branch-length vectors under one fixed model.
 
         ``branch_length_sets``: (B, n_nodes). All B evaluations run in one
-        fused dispatch (``vmap`` adds a batch grid axis to the Pallas
-        kernel), which amortizes the per-launch overhead — measured ~3x
-        the single-stream evaluation rate on TPU v5e. The model
+        jitted dispatch (``vmap`` adds a batch axis to every kernel of the
+        walk), which amortizes the per-launch overhead. The model
         eigendecomposition is computed once (``model_eigen``). Use for
         branch scans, profile likelihoods, multi-start seeding, and
         search-candidate scoring.
@@ -586,7 +505,7 @@ class LikelihoodEngine:
         n_sites = int(w.sum())
         rng = np.random.default_rng(seed)
         boot_w = rng.multinomial(n_sites, w / n_sites, size=n_replicates)
-        return boot_w @ sw
+        return boot_w @ sw      # numpy, float64: no device precision mode
 
 
 class GammaMixture:
@@ -602,12 +521,11 @@ class GammaMixture:
 
     def __init__(self, alpha: float, ncat: int, model: Model,
                  invariant_sites: bool = False, pinv: float = 0.2,
-                 dtype=None, pruner: str = "xla"):
+                 dtype=None):
         self.model = model
         self.ncat = int(ncat)
         self.invariant_sites = bool(invariant_sites)
         self._dtype = dtype
-        self._pruner = pruner
         self._engine: Optional[LikelihoodEngine] = None
         self._alignment = None
         self._params: Dict = {"alpha": alpha}
@@ -628,7 +546,6 @@ class GammaMixture:
         self._engine = LikelihoodEngine(
             tree, self._alignment, self.model, ncat=self.ncat,
             invariant_sites=self.invariant_sites, dtype=self._dtype,
-            pruner=self._pruner,
         )
         self._params.pop("branch_lengths", None)
         return self

@@ -182,7 +182,8 @@ class ModelMixtureEngine(LikelihoodEngine):
         root_partials, root_logscale = self._prune(p, leaf_partials)
         # mixture root reduction with PER-CATEGORY frequencies
         site_lik = jnp.einsum(
-            "ksi,ki->ks", root_partials, freqs_k.astype(dtype)
+            "ksi,ki->ks", root_partials, freqs_k.astype(dtype),
+            precision=jax.lax.Precision.HIGHEST,
         )
         m = jnp.max(root_logscale, axis=0)
         mixed = jnp.sum(
@@ -193,7 +194,8 @@ class ModelMixtureEngine(LikelihoodEngine):
         if self.invariant_sites:
             pinv = jnp.asarray(params["pinv"], dtype)
             # invariant component under the weight-averaged frequencies
-            freqs_bar = jnp.einsum("k,ki->i", cat_weights, freqs_k)
+            freqs_bar = jnp.einsum("k,ki->i", cat_weights, freqs_k,
+                                   precision=jax.lax.Precision.HIGHEST)
             inv = invariant_site_likelihood(leaf_partials, freqs_bar)
             log_var = jnp.log(mixed) + m
             log_inv = jnp.where(
@@ -216,7 +218,8 @@ class ModelMixtureEngine(LikelihoodEngine):
             _, cat_weights, p, freqs_k = self._mixture_tensors(full, dtype)
             root_partials, root_logscale = self._prune(p, leaf_partials)
             lik = jnp.einsum("ksi,ki->ks", root_partials,
-                             freqs_k.astype(dtype))
+                             freqs_k.astype(dtype),
+                             precision=jax.lax.Precision.HIGHEST)
             m = jnp.max(root_logscale, axis=0)
             gam = cat_weights[:, None] * lik * jnp.exp(
                 root_logscale - m[None, :]
@@ -531,7 +534,8 @@ def _site_class_logliks(engine, params, omegas):
         p = extend_p_identity(p, engine.schedule.n_nodes)
         root_partials, root_logscale = engine._prune(p, leaf_partials)
         lik = jnp.einsum("ksi,ki->ks", root_partials,
-                         freqs_k.astype(dtype))
+                         freqs_k.astype(dtype),
+                         precision=jax.lax.Precision.HIGHEST)
         return jnp.log(lik) + root_logscale
 
     if not hasattr(engine, "_beb_jit"):

@@ -6,7 +6,7 @@ nonsynonymous/synonymous ratio omega (dN/dS) — the workhorse of selection
 analysis. Reversible: q_ij = pi_j * h_ij with symmetric
 h_ij = kappa^[ts] * omega^[nonsyn] for codon pairs differing at exactly one
 position, so the engine's eigh-expm path and Daleckii-Krein gradients apply
-unchanged; 61 states pad to 64 sublanes in the Pallas kernel.
+unchanged.
 """
 from __future__ import annotations
 

@@ -2,9 +2,8 @@
 //
 // Reference parity: the reference's only native component is its Cython
 // likcalc kernel module (SURVEY.md §2 native-component ledger); its pattern
-// compression is thin/caller-side Python. In the TPU build the *compute*
-// native path is the Pallas kernel (ops/pallas_pruning.py); this C++ module
-// is the native *runtime* data-loader stage: it turns a character matrix
+// compression is thin/caller-side Python. This C++ module is the native
+// *runtime* data-loader stage: it turns a character matrix
 // into unique site patterns + weights before device upload. Hash-based
 // single pass, O(sites x taxa), vs numpy's sort-based unique
 // (O(sites x taxa log sites)) — this is the host bottleneck for

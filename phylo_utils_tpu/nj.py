@@ -1,7 +1,7 @@
 """Neighbor-joining tree construction from a distance matrix.
 
 Completes the de-novo pipeline: alignment → ML distances
-(``optimize.ml_distance_matrix``, vmapped Newton on TPU) → NJ starting tree
+(``optimize.ml_distance_matrix``, vmapped Newton on device) → NJ starting tree
 → ``batched.nni_hill_climb`` ML refinement. Saitou-Nei with the standard
 Studier-Keppler O(n^3) update; negative NJ branch lengths are clamped to 0
 (conventional). Returns a trifurcating-rooted :class:`trees.Tree` (the

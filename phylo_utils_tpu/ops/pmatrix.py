@@ -4,7 +4,7 @@ Reference parity: phylo_utils/markov.py ``TransitionMatrix`` —
 P(t) = V diag(e^{lambda t}) V^-1, dP/dt = Q P, d2P/dt2 = Q^2 P
 (SURVEY.md §2/§3.3 [MED symbol names, HIGH mechanism]).
 
-TPU-first: ``t`` may have arbitrary batch shape (edges x rate-categories);
+Batched: ``t`` may have arbitrary batch shape (edges x rate-categories);
 the whole batch is one fused einsum on device. HIGHEST precision is requested
 so f32 runs keep the 1e-6 logL budget (SURVEY.md §7 hard part 1). For
 non-reversible models (Eigen.evals is None) a scaling-and-squaring expm is
@@ -59,15 +59,14 @@ def transition_matrices(
     """P(t) for a batch of times. t: (...,) -> P: (..., S, S).
 
     ``out_dtype``: dtype of the RECONSTRUCT step (and the returned P).
-    Latency lever for f32 engines under x64 (round-3): the eigenvalue
+    Latency lever for f32 engines under x64: the eigenvalue
     exponentials e^{lambda t} stay in ``t``'s dtype (f64 — the exp is the
     coherent-error source: a biased e^{lambda t} acts like a systematic
     branch-length perturbation across every site), but the spectral-mode
     matmul runs in ``out_dtype`` (f32), whose rounding is incoherent
     across P entries and vanishes in the pattern sum. This removes the
-    emulated-f64 reconstruct AND the separate downcast of the full
-    (edges, K, S, S) tensor from the per-evaluation path. Measured parity
-    impact on the 64-taxon GTR+Gamma4 bench config: see PARITY.md.
+    f64 reconstruct AND the separate downcast of the full
+    (edges, K, S, S) tensor from the per-evaluation path.
     """
     t = jnp.asarray(t)
     if eig.evals is None:

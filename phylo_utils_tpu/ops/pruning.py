@@ -4,10 +4,10 @@ Reference parity: phylo_utils/likcalc.pyx ``likvec_2desc``/``likvec_1desc``
 (per-node C loops over sites x states), per-node rescaling, and the sitewise
 root reduction (SURVEY.md §2/§3.2 [HIGH]).
 
-TPU-first redesign: instead of a Python post-order walk calling a C kernel
-per node, the topology's level schedule (trees.compile_schedule) is baked
-into the trace as constant index arrays; each level combines ALL its nodes
-for ALL rate categories in one batched einsum over
+Redesign for an accelerator: instead of a Python post-order walk calling a
+C kernel per node, the topology's level schedule (trees.compile_schedule)
+is baked into the trace as constant index arrays; each level combines ALL
+its nodes for ALL rate categories in one batched einsum over
 (width x children x categories x sites x states), with unconditional
 per-(category, site) rescaling. The per-category Python loop of the
 reference becomes a tensor axis; the per-node loop becomes a gather/scatter
@@ -15,15 +15,12 @@ on one partials buffer. Sites are the data-parallel axis: every op here is
 elementwise or a gather/scatter on non-site axes, so under a
 ``NamedSharding(P(..., 'sites', ...))`` the pass runs shard-local and only
 the final weighted sum needs a psum.
-
-A fused Pallas TPU kernel for the combine+rescale is in
-``phylo_utils_tpu.ops.pallas_pruning``; this module is the pure-XLA path and
-correctness reference (identical math, different lowering).
 """
 from __future__ import annotations
 
 from typing import Callable, Optional, Tuple
 
+import jax
 import jax.numpy as jnp
 import numpy as np
 from jax import lax
@@ -33,11 +30,11 @@ from phylo_utils_tpu.trees import PruningSchedule
 __all__ = [
     "make_prune_fn",
     "mixture_loglik",
-    "mixture_loglik_from_ll",
     "invariant_site_likelihood",
     "pow2_rescale",
     "exp2_int",
     "LN2",
+    "DP_BLOCK",
 ]
 
 _HI = lax.Precision.HIGHEST
@@ -53,18 +50,14 @@ def pow2_rescale(m):
     EXACT f32 operation and the accumulated scale exponents are exact
     small integers (stored in f32; adds are exact below 2^24).
 
-    Why: TPU's f32 ``log`` is a fast polynomial with absolute error up to
-    ~1e-4 and a positive bias (measured on v5e, PARITY.md) — accumulating
-    ``log(m)`` per pruning node biased every sitewise logL by ~1e-5
-    relative, blowing the 1e-6 parity budget on realistic trees. The
-    power-of-two scheme removes every transcendental (and every rounding)
-    from the rescale chain; the single exponent-count -> ln conversion
-    happens once at the root, in the reduction dtype.
+    Why: the scale exponents are exact integers, so the rescale chain has
+    no transcendental and no rounding in it, whatever the accuracy of the
+    device's f32 ``log``. Accumulating an f32 ``log(m)`` per pruning node
+    instead adds one rounding per node to every sitewise logL. The single
+    exponent-count -> ln conversion happens once at the root, in the
+    reduction dtype.
     """
-    import jax
-
-    # np.int32 literals: Python ints trace as i64 under jax_enable_x64,
-    # which Mosaic rejects (and jnp.clip recurses on the mixed widths)
+    # np.int32 literals: Python ints trace as i64 under jax_enable_x64
     i32 = np.int32
     bits = jax.lax.bitcast_convert_type(m, jnp.int32)
     eb = jnp.right_shift(bits, i32(23)) & i32(0xFF)
@@ -77,14 +70,64 @@ def pow2_rescale(m):
 
 def exp2_int(k):
     """Exact ``2**k`` for an integer-VALUED f32 tensor (bit assembly)."""
-    import jax
-
     i32 = np.int32
     kf = jnp.minimum(jnp.maximum(k, jnp.float32(-126.0)), jnp.float32(127.0))
     ki = kf.astype(jnp.int32)
     return jax.lax.bitcast_convert_type(
         jnp.left_shift(ki + i32(127), i32(23)), jnp.float32
     )
+
+
+# Sites per block of the gradient's dP contraction (``_child_messages``).
+DP_BLOCK = 1024
+
+
+@jax.custom_jvp
+def _child_messages(p, child):
+    """``sum_j P[w,c,k,i,j] * child[w,c,k,s,j]``: each child's partials
+    carried up its edge, for every (node, child, category, site)."""
+    return jnp.einsum("wckij,wcksj->wcksi", p, child, precision=_HI)
+
+
+def _blocked_messages(dp, child):
+    """``_child_messages(dp, child)`` with the sites split into blocks of
+    DP_BLOCK and ``dp`` broadcast over the blocks. The same product; what
+    differs is its transpose, the gradient's dP: one short contraction per
+    block, then a sum over blocks.
+
+    As one GEMM with the sites as its contraction, a GPU accumulates dP in
+    f32 along the whole site axis, and the f32 gradient lost precision
+    faster than the site count grew (2e-4 relative to the f64 gradient at
+    100,000 patterns on an H100; 7e-7 in blocks, and no slower)."""
+    w, c, k, s, n = child.shape
+    if s <= DP_BLOCK:
+        return _child_messages(dp, child)
+    pad = (-s) % DP_BLOCK
+    if pad:     # zero sites add nothing to dP (sharded engines pad whole
+        # blocks per device, so this copy never splits a shard)
+        child = jnp.pad(child, ((0, 0),) * 3 + ((0, pad), (0, 0)))
+    nb = (s + pad) // DP_BLOCK
+    blocks = child.reshape(w, c, k, nb, DP_BLOCK, n)
+    dpb = jnp.broadcast_to(dp[:, :, :, None], (w, c, k, nb, n, n))
+    out = jnp.einsum("wckbij,wckbsj->wckbsi", dpb, blocks, precision=_HI)
+    return out.reshape(w, c, k, nb * DP_BLOCK, n)[:, :, :, :s]
+
+
+def _child_messages_jvp(primals, tangents):
+    p, child = primals
+    dp, dchild = tangents
+    out = _child_messages(p, child)
+    zero = jax.custom_derivatives.SymbolicZero
+    t = None
+    if type(dchild) is not zero:
+        t = _child_messages(p, dchild)
+    if type(dp) is not zero:
+        t_p = _blocked_messages(dp, child)
+        t = t_p if t is None else t + t_p
+    return out, jnp.zeros_like(out) if t is None else t
+
+
+_child_messages.defjvp(_child_messages_jvp, symbolic_zeros=True)
 
 
 def make_prune_fn(
@@ -110,8 +153,7 @@ def make_prune_fn(
     trees, forward-only workloads). ``remat=True`` wraps each level in
     ``jax.checkpoint`` so autodiff recomputes level activations instead of
     storing the full (n_nodes+1, K, sites, S) residual chain — trades ~1
-    extra forward pass for O(depth) less gradient memory on deep trees
-    (SURVEY.md HBM-bandwidth guidance: remat to trade FLOPs for memory).
+    extra forward pass for O(depth) less gradient memory on deep trees.
     """
     nodes_np = np.asarray(schedule.level_nodes)
     children_np = np.asarray(schedule.level_children)
@@ -138,17 +180,14 @@ def make_prune_fn(
             child_p = buf[children]          # (W, C, K, sites, S)
             child_sc = logscale[children]    # (W, C, K, sites)
             p = p_matrices[children]         # (W, C, K, S, S)
-            contrib = jnp.einsum(
-                "wckij,wcksj->wcksi", p, child_p, precision=_HI
-            )
+            contrib = _child_messages(p, child_p)
             mask_b = mask[:, :, None, None, None].astype(dtype)
             contrib = contrib * mask_b + (1.0 - mask_b)
             partial = jnp.prod(contrib, axis=1)                     # (W,K,sites,S)
             sc = jnp.sum(child_sc * mask[:, :, None, None], axis=1)  # (W,K,sites)
             m = jnp.maximum(jnp.max(partial, axis=-1), tiny)
             if dtype == jnp.float32:
-                # exact power-of-2 rescale: TPU f32 log is ~1e-4-accurate
-                # with a positive bias (see pow2_rescale) — logscale
+                # exact power-of-2 rescale (see pow2_rescale): logscale
                 # accumulates binary EXPONENT COUNTS here, converted to
                 # ln units once at the root below
                 scale, e = pow2_rescale(m)
@@ -163,8 +202,6 @@ def make_prune_fn(
 
         step = level_step
         if remat:
-            import jax
-
             step = jax.checkpoint(level_step, static_argnums=())
         if unroll:
             carry = (buf, logscale)
@@ -196,7 +233,7 @@ def invariant_site_likelihood(
     """Per-site likelihood of the zero-rate (invariant) component:
     sum_i pi_i * prod_leaves leaf_partials[l, s, i]. (sites,)"""
     prod = jnp.prod(leaf_partials, axis=0)  # (sites, S)
-    return prod @ freqs.astype(prod.dtype)
+    return jnp.matmul(prod, freqs.astype(prod.dtype), precision=_HI)
 
 
 def mixture_loglik(
@@ -253,32 +290,3 @@ def _mix_invariant(log_var, pinv, inv_lik, dtype):
     return jnp.logaddexp(
         jnp.log1p(-pinv) + log_var, jnp.log(pinv) + log_inv
     )
-
-
-def mixture_loglik_from_ll(
-    ll: jnp.ndarray,                # (K, sites) per-category sitewise logL
-    cat_weights: jnp.ndarray,       # (K,)
-    pattern_weights: jnp.ndarray,   # (sites,)
-    pinv: Optional[jnp.ndarray] = None,
-    inv_lik: Optional[jnp.ndarray] = None,
-) -> Tuple[jnp.ndarray, jnp.ndarray]:
-    """Category mixing given per-category LOG likelihoods (fused-root path).
-
-    Same semantics as ``mixture_loglik`` but starting from
-    ``ll[k, s] = log L_{s|k}`` (as produced by
-    ``pallas_pruning.make_pallas_loglik_fn``): a weighted logsumexp over
-    categories, optional +I, then the weighted pattern sum.
-    """
-    dtype = ll.dtype
-    m = jnp.max(ll, axis=0)                          # (sites,)
-    m = jnp.where(jnp.isfinite(m), m, 0.0)           # all--inf guard
-    mixed = jnp.sum(
-        cat_weights[:, None].astype(dtype) * jnp.exp(ll - m[None, :]), axis=0
-    )
-    log_var = jnp.log(mixed) + m
-    if pinv is not None:
-        sitewise = _mix_invariant(log_var, pinv, inv_lik, dtype)
-    else:
-        sitewise = log_var
-    total = jnp.sum(pattern_weights.astype(dtype) * sitewise)
-    return total, sitewise

@@ -1,7 +1,7 @@
 """Data-parallel site sharding over a device mesh.
 
 The reference is a single-core CPU library with no parallelism of any kind
-(SURVEY.md §2, parallelism ledger [HIGH]); every line here is new TPU-first
+(SURVEY.md §2, parallelism ledger [HIGH]); every line here is new
 design, constrained by BASELINE.json config 5 ("sites sharded across hosts").
 
 Design (SURVEY.md §5 "long-context" row): alignment *site patterns* are the
@@ -26,6 +26,8 @@ import jax
 import jax.numpy as jnp
 import numpy as np
 from jax.sharding import Mesh, NamedSharding, PartitionSpec as P
+
+from phylo_utils_tpu.ops.pruning import DP_BLOCK
 
 __all__ = ["make_mesh", "SiteSharding", "distributed_init"]
 
@@ -84,9 +86,6 @@ class SiteSharding:
     ----------
     mesh : jax.sharding.Mesh (default: all devices, axis "sites")
     axis : mesh axis name holding sites
-    tile : pad the pattern count to a multiple of ``n_devices * tile``
-        (set 128 to keep Pallas site tiles full on every shard; 1 for
-        minimal padding on the XLA path).
 
     Padded pattern slots hold all-ones partials and zero weights: an
     all-ones column has site likelihood sum_i pi_i = 1 (logL contribution
@@ -94,11 +93,9 @@ class SiteSharding:
     produces -inf/NaN in the log.
     """
 
-    def __init__(self, mesh: Optional[Mesh] = None, axis: str = "sites",
-                 tile: int = 1):
+    def __init__(self, mesh: Optional[Mesh] = None, axis: str = "sites"):
         self.mesh = mesh if mesh is not None else make_mesh()
         self.axis = axis
-        self.tile = int(tile)
         if axis not in self.mesh.axis_names:
             raise ValueError(f"mesh has no axis named {axis!r}")
         self.n_devices = int(self.mesh.shape[axis])
@@ -122,7 +119,13 @@ class SiteSharding:
     # -- data placement ------------------------------------------------------
 
     def padded_size(self, n_patterns: int) -> int:
-        q = self.n_devices * max(self.tile, 1)
+        """A multiple of the device count and, above ``DP_BLOCK`` patterns,
+        of ``n_devices * DP_BLOCK``: the gradient sums dP over blocks of
+        DP_BLOCK sites (ops.pruning), and whole blocks on every device keep
+        that reshape local to each shard (no all-gather per level)."""
+        q = self.n_devices
+        if n_patterns > DP_BLOCK:
+            q *= DP_BLOCK
         return max(int(math.ceil(n_patterns / q)) * q, q)
 
     def pad(

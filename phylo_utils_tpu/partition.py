@@ -52,7 +52,6 @@ class PartitionedEngine:
         tree: Union[ptrees.Tree, str],
         partitions: Sequence[Partition],
         dtype=None,
-        pruner: str = "xla",
         link_rates: bool = True,
         sharding=None,
     ):
@@ -75,7 +74,7 @@ class PartitionedEngine:
             LikelihoodEngine(
                 tree, p.alignment, p.model, ncat=p.ncat,
                 invariant_sites=p.invariant_sites, dtype=dtype,
-                pruner=pruner, rate_model=p.rate_model, sharding=sharding,
+                rate_model=p.rate_model, sharding=sharding,
             )
             for p in partitions
         ]
@@ -203,7 +202,6 @@ class StackedPartitionedEngine(PartitionedEngine):
         tree: Union[ptrees.Tree, str],
         partitions: Sequence[Partition],
         dtype=None,
-        pruner: str = "xla",
         link_rates: bool = True,
         sharding=None,
     ):
@@ -233,13 +231,13 @@ class StackedPartitionedEngine(PartitionedEngine):
         self.link_rates = bool(link_rates)
         self.sharding = sharding
 
-        # ONE template engine supplies schedule, pruner, mixture config;
+        # ONE template engine supplies schedule, walk, mixture config;
         # its _loglik_fn is pure in (params, leaf_partials, weights) and
         # vmaps over the locus axis
         self._template = LikelihoodEngine(
             tree, first.alignment, first.model, ncat=first.ncat,
             invariant_sites=first.invariant_sites, dtype=dtype,
-            pruner=pruner, rate_model=first.rate_model, sharding=sharding,
+            rate_model=first.rate_model, sharding=sharding,
         )
         self.dtype = self._template.dtype
         self._engines = [self._template] * len(partitions)

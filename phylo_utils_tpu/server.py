@@ -67,9 +67,12 @@ class EngineServer:
                         p.name: p.model.name
                         for p in getattr(engine, "partitions", [])
                     }
+                dev = jax.devices()[0]
                 return {
                     "status": "ok",
-                    "device": str(jax.devices()[0]),
+                    "device": str(dev),
+                    "platform": dev.platform,
+                    "device_kind": dev.device_kind,
                     "model": model_name,
                     "n_patterns": int(np.asarray(engine._weights).shape[0])
                     if not isinstance(engine._weights, tuple)

@@ -5,7 +5,7 @@ states from the equilibrium frequencies, then walk the tree top-down sampling
 each child's state from the parent's P(t) row, with per-site gamma-category
 rates (SURVEY.md §2/§3.5 [MED]).
 
-TPU-first redesign: the Python pre-order recursion with per-site weighted
+Redesign for an accelerator: the Python pre-order recursion with per-site weighted
 choice (reference likcalc weighted sampling kernel) becomes a ``lax.scan``
 over a static pre-order node array; each step samples ALL sites of one node
 in a single vectorized ``jax.random.categorical`` over gathered P rows. All

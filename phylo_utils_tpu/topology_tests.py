@@ -191,7 +191,7 @@ def likelihood_mapping(
     vector onto the 2-simplex. The distribution of points diagnoses how
     tree-like the alignment is before any tree search.
 
-    TPU-first: all ``3 * n_quartets`` four-taxon likelihood surfaces are
+    Batched: all ``3 * n_quartets`` four-taxon likelihood surfaces are
     optimized SIMULTANEOUSLY in one jitted program — the quartet pruning
     is written directly as einsums (no schedule machinery needed at this
     size) and vmapped over (quartet, topology); Adam in the softplus
@@ -239,17 +239,20 @@ def likelihood_mapping(
     # index permutations of the quartet's four rows
     pairings = jnp.asarray([[0, 1, 2, 3], [0, 2, 1, 3], [0, 3, 1, 2]])
 
+    hi = jax.lax.Precision.HIGHEST
+
     def quartet_logl(lp4, raw_t):
         """lp4: (4, sites, S) ordered (a, b | c, d); raw_t: (5,)."""
         t = jax.nn.softplus(raw_t)
         p = transition_matrices(eig, t.astype(jnp.float64),
                                 out_dtype=jnp.float32)   # (5, S, S)
-        msg = jnp.einsum("eij,esj->esi", p[:4],
-                         lp4)                            # (4, sites, S)
+        msg = jnp.einsum("eij,esj->esi", p[:4], lp4,
+                         precision=hi)                   # (4, sites, S)
         u = msg[0] * msg[1]                              # (sites, S)
         v = msg[2] * msg[3]
-        pv = jnp.einsum("ij,sj->si", p[4], v)
-        lik = jnp.einsum("i,si->s", freqs.astype(jnp.float32), u * pv)
+        pv = jnp.einsum("ij,sj->si", p[4], v, precision=hi)
+        lik = jnp.einsum("i,si->s", freqs.astype(jnp.float32), u * pv,
+                         precision=hi)
         return jnp.sum(jnp.log(jnp.maximum(lik, 1e-35)))
 
     def optimized_logl(lp4):

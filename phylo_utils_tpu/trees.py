@@ -2,7 +2,7 @@
 
 The reference attaches per-node mutable state to dendropy node objects and
 walks dendropy's post-order iterator in Python (SURVEY.md §1/§3.2 [HIGH]).
-That is the one design we deliberately do NOT reproduce: on TPU the topology
+That is the one design we deliberately do NOT reproduce: here the topology
 is compiled once into padded integer index arrays — a *level schedule* — so
 the whole pruning pass is a jit-compiled pure function of
 ``(P_matrices, leaf_partials, schedule)`` with static shapes. Recompilation
@@ -191,8 +191,8 @@ def compile_schedule(tree: Tree, binarize: bool = True) -> PruningSchedule:
     the root keeps its id). A pseudo-node's "edge" is the exact identity
     matrix, so the likelihood is mathematically unchanged — but the
     schedule's max-children drops to 2, which removes the masked third
-    contraction every *binary* node would otherwise pay in both pruner
-    paths: an unrooted tree's single trifurcating root previously forced
+    contraction every *binary* node would otherwise pay in the pruning
+    walk: an unrooted tree's single trifurcating root previously forced
     cmax=3 on all ~2N nodes (+50% contraction FLOPs). Consumers that
     build P(t) from branch lengths must append identity blocks for the
     pseudo-nodes via ``ops.pmatrix.extend_p_identity``. Binary trees
@@ -258,8 +258,8 @@ def regroup_schedule(schedule: PruningSchedule,
                      width: int) -> PruningSchedule:
     """Re-pack a level schedule into fixed-width dependency GROUPS.
 
-    The height-level grid pads every level to the widest one — measured
-    fill factors of 14–22% on 64-taxon NNI candidate sets (APPBENCH r4).
+    The height-level grid pads every level to the widest one, which
+    leaves most of the grid empty on NNI candidate sets.
     Hu's-algorithm list scheduling (unit tasks on an in-tree, priority =
     distance to root — makespan-optimal for ``width`` machines) packs the
     same combines into near-full groups of exactly ``width`` slots:

@@ -1,7 +1,7 @@
 """Checkpoint / resume for optimizer runs.
 
 The reference has nothing long-running enough to checkpoint (SURVEY.md §5
-[HIGH]); this is new TPU-native design: the entire optimization state is one
+[HIGH]); this is new design: the entire optimization state is one
 PyTree ``{params, opt_state, step, ...}`` of pure data, so checkpointing is
 exact — save on host 0, restore anywhere, continue bit-for-bit (modulo
 compiler nondeterminism). Format: a single ``.npz`` with '/'-joined PyTree

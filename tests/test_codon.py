@@ -105,7 +105,7 @@ def test_simulate_and_recover_omega():
 
 
 def test_codon_gamma_mixture_f32_no_nan():
-    """Regression (found on TPU): the slow gamma category's near-zero
+    """Regression (found on an accelerator): the slow gamma category's near-zero
     effective branch lengths round some f32 61x61 P entries negative,
     which flipped site likelihoods negative -> log(NaN). P is clamped to
     its mathematical domain now; a 32-taxon GY94+Gamma4 f32 run must be

@@ -1,11 +1,12 @@
 """Batched-f64-eigh platform-bug regression (root-caused r5, 2026-08-20).
 
-The TPU platform's emulated-f64 eigh returned ALL-NaN eigenpairs for the
+An accelerator backend's emulated-f64 eigh (on the platform this engine
+was first built for) returned ALL-NaN eigenpairs for the
 fourth matrix below when the four were decomposed as one batched (4,4,4)
 call — while the identical matrix decomposed fine unbatched (eigenvalue
 gaps ~0.02: well-conditioned, NOT a degeneracy case). The matrices are
 the exact symmetrized-Q inputs from two adam steps of a stacked 4-locus
-GTR+G4 fit, captured on TPU v5 lite. ``models.base._eigh_f64_seq``
+GTR+G4 fit, captured on that backend. ``models.base._eigh_f64_seq``
 (sequential_vmap) sidesteps the batched kernel; these tests pin (a) the
 sequential lowering stays correct under vmap on any backend and (b) the
 engine path that hit the bug (vmapped per-locus model builds) yields

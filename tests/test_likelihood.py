@@ -167,7 +167,7 @@ def test_compression_invariance():
 
 
 def test_float32_accuracy_vs_float64():
-    """The f32 path (TPU perf mode) must stay within the 1e-6 relative
+    """The f32 path (the throughput mode) must stay within the 1e-6 relative
     budget on a medium problem (SURVEY.md §7 hard part 1)."""
     tree = random_tree(64, seed=11, mean_brlen=0.08)
     aln = _random_alignment(tree, 300, seed=3)
@@ -242,8 +242,9 @@ def test_engine_scan_path_matches_unrolled():
 
 
 def test_loglikelihood_many_matches_single():
-    """Batched branch-length evaluation (one fused dispatch) must equal
-    per-set single evaluations, on both pruners."""
+    """Batched branch-length evaluation (one dispatch) must equal per-set
+    single evaluations, for the unrolled, scanned and rematerialized
+    level walks."""
     import numpy as np
 
     from phylo_utils_tpu.trees import random_tree
@@ -252,9 +253,9 @@ def test_loglikelihood_many_matches_single():
     rng = np.random.default_rng(2)
     aln = {n: "".join(rng.choice(list("ACGT"), size=60))
            for n in tree.leaf_names}
-    for pruner in ("xla", "pallas"):
+    for walk in ({}, {"unroll": False}, {"remat": True}):
         eng = LikelihoodEngine(tree, aln, models.HKY85, ncat=3,
-                               dtype="float32", pruner=pruner)
+                               dtype="float32", **walk)
         base = np.asarray(eng.default_params()["branch_lengths"])
         sets = np.stack([base * s for s in (0.5, 1.0, 1.7, 3.0)])
         batched = eng.loglikelihood_many(sets)
@@ -265,7 +266,7 @@ def test_loglikelihood_many_matches_single():
 
 
 def test_eigen_tied_degenerate_structure_finite_and_accurate():
-    """Regression: TPU's f64 eigh returned NaN eigenpairs for a doubly-
+    """Regression: an emulated-f64 eigh returned NaN eigenpairs for a doubly-
     degenerate GTR B-matrix arising from f32-rounded duplicate rates
     (adam step 1 of a fit). eigen_reversible now applies a graded 1e-13
     diagonal tie-break for f64; this pins (a) finiteness at the exact

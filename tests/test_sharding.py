@@ -91,22 +91,21 @@ def test_dryrun_multichip_entrypoint():
     __graft_entry__.dryrun_multichip(8)
 
 
-def test_sharded_pallas_pruner_matches_unsharded(mesh):
-    """The pallas kernel under shard_map must give the single-device logL."""
+def test_sharded_f32_matches_unsharded(mesh):
+    """The f32 engine on the mesh must give the single-device logL."""
     tree = random_tree(12, seed=20)
     aln = _aln(tree, 96, seed=21)
-    single = LikelihoodEngine(tree, aln, models.GTR, ncat=2, pruner="pallas",
-                              dtype="float32")
+    single = LikelihoodEngine(tree, aln, models.GTR, ncat=2, dtype="float32")
     sharded = LikelihoodEngine(
         tree, aln, models.GTR, ncat=2,
-        sharding=SiteSharding(mesh), pruner="pallas", dtype="float32",
+        sharding=SiteSharding(mesh), dtype="float32",
     )
     # full-f32 run: the sharded weighted sum reduces in a different order,
     # so agreement is at f32 rounding level (exact in the f64 engine test)
     assert single.loglikelihood() == pytest.approx(
         sharded.loglikelihood(), rel=1e-6
     )
-    # gradient flows through the shard_mapped custom_vjp (f32 tolerance)
+    # gradient reduction across shards (f32 tolerance)
     g = sharded.gradient()
     gs = single.gradient()
     np.testing.assert_allclose(
@@ -123,5 +122,6 @@ def test_engine_rejects_wrong_alphabet_and_pruner():
     dna_encoded = compress_patterns(aln, "dna")  # 4-state partials
     with pytest.raises(ValueError, match="states"):
         LikelihoodEngine(tree, dna_encoded, models.LG)  # 20-state model
-    with pytest.raises(ValueError, match="pruner"):
-        LikelihoodEngine(tree, aln, models.JC69, pruner="cuda")
+    # the kernel-choice keyword is gone: the XLA walk is the only one
+    with pytest.raises(TypeError, match="pruner"):
+        LikelihoodEngine(tree, aln, models.JC69, pruner="pallas")

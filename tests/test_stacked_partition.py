@@ -87,10 +87,10 @@ def test_stacked_rejects_heterogeneous():
         StackedPartitionedEngine(tree, parts)
 
 
-def test_stacked_pallas_pruner(setup):
+def test_stacked_f32_matches_general(setup):
     tree, parts = setup
     gen = PartitionedEngine(tree, parts)
-    stk = StackedPartitionedEngine(tree, parts, pruner="pallas")
+    stk = StackedPartitionedEngine(tree, parts, dtype="float32")
     assert gen.loglikelihood() == pytest.approx(
         stk.loglikelihood(), rel=1e-6
     )
